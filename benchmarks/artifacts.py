@@ -1,10 +1,13 @@
-"""Committed-benchmark artifact writer: ONE implementation of the
-provenance rule (every number quoted in the README cites a committed
-artifact measured on the real device — CPU-only runs must never overwrite
-TPU evidence)."""
+"""Benchmark artifact writer: ONE implementation of the provenance rule.
+
+An artifact is written only by a run on a GPU, and it records the device it
+was measured on: JAX's platform, device kind and device count, and each
+card's name and power limit as ``nvidia-smi`` reports them (a card set below
+its maximum power runs slower under load). CPU runs never write one."""
 
 import json
 import os
+import subprocess
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "results")
 
@@ -20,14 +23,33 @@ def clean_breakdown(bd: dict) -> dict:
     }
 
 
-def write_artifact(name: str, results) -> bool:
-    """Write results/<name>.json iff this process is running on the real
-    accelerator. Returns True when written."""
+def device_record() -> dict:
+    """The devices this process runs on, with each card's name and power
+    limit (one ``nvidia-smi`` line per card)."""
     import jax
 
-    if jax.devices()[0].platform == "cpu":
+    devices = jax.devices()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    return {
+        "platform": devices[0].platform,
+        "device_kind": devices[0].device_kind,
+        "count": len(devices),
+        "nvidia_smi": smi.splitlines(),
+    }
+
+
+def write_artifact(name: str, results) -> bool:
+    """Write results/<name>.json, with the device record, iff this process
+    runs on a GPU. Returns True when written."""
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
         return False
+    record = {"device": device_record(), "results": results}
     os.makedirs(RESULTS_DIR, exist_ok=True)
     with open(os.path.join(RESULTS_DIR, name + ".json"), "w") as f:
-        json.dump(results, f, indent=1)
+        json.dump(record, f, indent=1)
     return True

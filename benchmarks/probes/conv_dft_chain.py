@@ -1,9 +1,9 @@
-"""Micro-probe 4 (round 4): the superblock convolver's op-chain latency.
+"""Micro-probe 4: the superblock convolver's op-chain latency.
 
-conv_superblock_big costs ~0.14 ms/step for ~0.5 MFLOP of matmuls — the
-cost is the CHAIN of small non-fusable ops (4 swapaxes per ComplexDft
-stage pair, reverse `take` gathers in the real untangle, concats), each a
-few us of fixed latency on this backend. Candidates:
+conv_superblock_big does ~0.5 MFLOP of matmuls per step; the question is
+how much the CHAIN of small non-fusable ops around them costs (4 swapaxes
+per ComplexDft stage pair, reverse `take` gathers in the real untangle,
+concats), each a fixed per-op latency. Candidates:
 
   a) current conv_superblock_big (baseline)
   b) transpose-free ComplexDft: dot_general contracting the j1 axis in

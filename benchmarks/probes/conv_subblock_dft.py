@@ -1,7 +1,7 @@
-"""Micro-probe 7 (round 4): sub-blocked batched-DFT partitioned convolution.
+"""Micro-probe 7: sub-blocked batched-DFT partitioned convolution.
 
 The superblock-grain convolver (conv_superblock_big) runs ONE 2T-point
-real DFT forward and one inverse per step at batch 1 — poor MXU batching.
+real DFT forward and one inverse per step at batch 1 — poor matmul batching.
 Uniform partitioned convolution is parallel across sub-blocks once every
 input spectrum is available, so a superblock can instead split into L
 sub-blocks of B = T/L frames: one batch-L forward 2B-point DFT, a depthwise
@@ -10,8 +10,8 @@ overlap-add. Same math, L-fold DFT batching, smaller transforms.
 
 Sweeps L for the config-5 reverb shape (mono, 1 s IR) and the config-4
 flagship shape (stereo, 2 s IR) at superblock 64 (T=8192), timing a scanned
-step with carried state per the backend measurement rules (args not
-closures, device-consumed outputs, RTT amortized over the scan).
+step with carried state (args not closures, device-consumed outputs,
+dispatch amortized over the scan).
 
 Writes benchmarks/results/micro_probe7.json.
 """
@@ -19,7 +19,6 @@ Writes benchmarks/results/micro_probe7.json.
 from __future__ import annotations
 
 import json
-import os
 import time
 
 import numpy as np
@@ -32,7 +31,6 @@ from graphaudio_tpu.ops.convolve import (
     normalization_scale,
 )
 
-RESULTS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "results")
 T = 8192  # superblock 64
 N_STEPS = 256
 
@@ -170,9 +168,9 @@ def main():
         report[name] = sub
 
     report["warmup_and_total_seconds"] = round(time.perf_counter() - t0, 1)
-    os.makedirs(RESULTS, exist_ok=True)
-    with open(os.path.join(RESULTS, "micro_probe7.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    from benchmarks.artifacts import write_artifact
+
+    write_artifact("micro_probe7", report)
     print(json.dumps({"done": True}))
 
 

@@ -1,11 +1,10 @@
-"""Micro-probe 10 (round 4): exact cheap-precision HRIR spectra interp.
+"""Micro-probe 10: exact cheap-precision HRIR spectra interp.
 
 interp_hrir contracts fractional bilinear weights against the grid in ONE
-Precision.HIGHEST matmul (6 bf16 MXU passes). But a {0,1} SELECTION matmul
-is exact at ANY precision (one factor is 1.0), so the same interpolation
-can run as 4 corner selections at DEFAULT precision (1 pass each — 4
-passes total instead of 6) with the fractional weights applied as exact
-f32 elementwise multiplies afterwards:
+Precision.HIGHEST matmul. But a {0,1} SELECTION matmul is exact at ANY
+precision (one factor is 1.0), so the same interpolation can run as 4
+corner selections at DEFAULT precision with the fractional weights applied
+as exact f32 elementwise multiplies afterwards:
 
     out = sum_corner w_corner * (OH_corner @ grid)
 
@@ -19,7 +18,6 @@ Times both at config-5 shapes (V=128, S=64) inside the full HRTF step
 from __future__ import annotations
 
 import json
-import os
 import sys
 import time
 
@@ -37,7 +35,6 @@ from graphaudio_tpu.ops.hrtf import (
 )
 from graphaudio_tpu.core.constants import FRAMES_PER_BLOCK
 
-RESULTS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "results")
 V = 128
 S = 64
 N_STEPS = 256
@@ -146,9 +143,9 @@ def main():
     )
     report["shapes"] = {"V": V, "S": S, "fft": FFT, "n_steps": N_STEPS}
     report["warmup_and_total_seconds"] = round(time.perf_counter() - t0, 1)
-    os.makedirs(RESULTS, exist_ok=True)
-    with open(os.path.join(RESULTS, "micro_probe10.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    from benchmarks.artifacts import write_artifact
+
+    write_artifact("micro_probe10", report)
     print(json.dumps(report))
 
 

@@ -1,10 +1,9 @@
-"""Micro-probe 8 (round 4): DFT matmul precision for the HRTF stage.
+"""Micro-probe 8: DFT matmul precision for the HRTF stage.
 
-Config 5's only remaining hot stage is the 128-voice SpatialPannerNode
-group (+0.22 ms/step marginal, benchmarks/ablate.py). Its cost is MXU
-matmuls at Precision.HIGHEST (6 bf16 passes per f32 matmul): per-quantum
-forward 192-pt DFT, complex MAC, inverse DFT. Precision.HIGH (3 passes)
-halves the MXU work IF the result stays inside the 1e-5 oracle budget.
+Config 5's 128-voice SpatialPannerNode group runs its HRTF as matmuls at
+Precision.HIGHEST: per-quantum forward 192-pt DFT, complex MAC, inverse
+DFT. A lower precision is cheaper IF the result stays inside the 1e-5
+oracle budget.
 
 Times the HRTF pipeline (spectra interp + frequency-domain OLA FIR) at
 config-5 shapes (V=128 voices, S=64 quanta/step) for HIGHEST vs HIGH on
@@ -15,7 +14,6 @@ of the same quanta. Writes benchmarks/results/micro_probe8.json.
 from __future__ import annotations
 
 import json
-import os
 import time
 
 import numpy as np
@@ -32,7 +30,6 @@ from graphaudio_tpu.ops.hrtf import (
 )
 from graphaudio_tpu.core.constants import FRAMES_PER_BLOCK
 
-RESULTS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "results")
 V = 128
 S = 64
 N_STEPS = 256
@@ -206,9 +203,9 @@ def main():
     }
     report["shapes"] = {"V": V, "S": S, "fft": FFT, "n_steps": N_STEPS}
     report["warmup_and_total_seconds"] = round(time.perf_counter() - t0, 1)
-    os.makedirs(RESULTS, exist_ok=True)
-    with open(os.path.join(RESULTS, "micro_probe8.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    from benchmarks.artifacts import write_artifact
+
+    write_artifact("micro_probe8", report)
     print(json.dumps(report))
 
 

@@ -1,8 +1,7 @@
-"""Micro-probe 9 (round 4): what is the HRTF stage actually bound on?
+"""Micro-probe 9: what is the HRTF stage actually bound on?
 
-Probe 8 showed the spatializer's HRTF pipeline is not MXU-pass-bound
-(HIGH precision bought 12%, not 2x). This decomposes the 0.27 ms/step at
-config-5 shapes (V=128, S=64): per-quantum spectra interpolation (one-hot
+Decomposes the spatializer's HRTF step at config-5 shapes (V=128, S=64):
+per-quantum spectra interpolation (one-hot
 bilinear weights -> grid matmul) vs the frequency-domain OLA FIR (DFT
 matmuls + complex MAC), plus two structural variants:
 
@@ -18,7 +17,6 @@ Writes benchmarks/results/micro_probe9.json.
 from __future__ import annotations
 
 import json
-import os
 import time
 
 import numpy as np
@@ -35,7 +33,6 @@ from graphaudio_tpu.ops.hrtf import (
 )
 from graphaudio_tpu.core.constants import FRAMES_PER_BLOCK
 
-RESULTS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "results")
 V = 128
 S = 64
 N_STEPS = 256
@@ -178,7 +175,7 @@ def main():
         return nov, y
 
     def step_flat_fused(ov, x, a, e):
-        # No vmap: the voice axis flattens into matmul ROWS so the MXU sees
+        # No vmap: the voice axis flattens into matmul ROWS, giving
         # one [V*S, .] matmul per basis instead of a batch of 128 small ones,
         # and the OLA shift runs once across [V, S, ...].
         h = interp_hrir(g_packed, a.reshape(-1), e.reshape(-1))  # [V*S,2,2B]
@@ -234,9 +231,9 @@ def main():
     }
     report["shapes"] = {"V": V, "S": S, "fft": FFT, "n_steps": N_STEPS}
     report["warmup_and_total_seconds"] = round(time.perf_counter() - t0, 1)
-    os.makedirs(RESULTS, exist_ok=True)
-    with open(os.path.join(RESULTS, "micro_probe9.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    from benchmarks.artifacts import write_artifact
+
+    write_artifact("micro_probe9", report)
     print(json.dumps(report))
 
 

@@ -1,9 +1,8 @@
-"""Micro-probe 5 (round 4): config-5 superblock sweep on current kernels.
+"""Micro-probe 5: config-5 superblock sweep on current kernels.
 
-After the flip-based real-DFT untangle (micro_probe4) and the round's
-source/spatial kernel work, re-ask the superblock question for config 5:
-the per-step fixed op-chain overheads amortize over 2x audio at SB=64
-while the convolver's partition count halves. Measures xrt_compute (the
+The superblock question for config 5: the per-step fixed op-chain
+overheads amortize over 2x audio at SB=64 while the convolver's partition
+count halves. Measures xrt_compute (the
 artifact metric) per superblock. Writes
 benchmarks/results/micro_probe5.json.
 """

@@ -1,13 +1,13 @@
-"""Micro-probe 3 (round 4): where do the unity source group's 0.18 ms go?
+"""Micro-probe 3: where does the unity source group's step time go?
 
-The fused row gather alone measured 0.034 ms/step (micro_probe.json) but
-the whole stage costs ~0.18 ms (ablate, config 5) — ~0.14 ms is position
-bookkeeping, activity masks, and per-op overhead. This probe times the
+The fused row gather is a small part of the whole stage's cost (ablate,
+config 5); the rest is position bookkeeping, activity masks, and per-op
+overhead. This probe times the
 REAL `process_unity_group` on config 5's actual arena/geometry, then
 stripped variants, so the gap gets attributed before anything is
 "optimized".
 
-Measurement rules as micro_probe.py: two-length scan difference, carry
+Measurement rules as kernels_config5.py: two-length scan difference, carry
 evolves, operands as arguments, every wait is a device_get.
 
 Writes benchmarks/results/micro_probe3.json.

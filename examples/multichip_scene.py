@@ -2,9 +2,9 @@
 
 Run: python examples/multichip_scene.py [n_devices]
 
-Uses virtual CPU devices when real chips are unavailable, so it runs
-anywhere: the same `context.set_mesh(mesh)` call scales to a real TPU pod
-slice, where the bus fan-in psum rides ICI.
+Uses virtual CPU devices by default, so it runs anywhere: the same
+`context.set_mesh(mesh)` call scales to several GPUs of one host, where the
+bus fan-in psum rides NVLink (set GA_EXAMPLE_REAL_DEVICES=1).
 """
 
 import sys
@@ -18,7 +18,7 @@ def main(n_devices: int = 4):
     if not os.environ.get("GA_EXAMPLE_REAL_DEVICES"):
         # Demo default: virtual CPU devices (must be configured before the
         # backend initializes). The SPMD program is identical on real chips;
-        # set GA_EXAMPLE_REAL_DEVICES=1 on a pod slice.
+        # set GA_EXAMPLE_REAL_DEVICES=1 on a multi-GPU host.
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", max(n_devices, 4))
 

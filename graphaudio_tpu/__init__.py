@@ -1,54 +1,56 @@
-"""graphaudio_tpu — a TPU-native audio-graph rendering framework.
+"""graphaudio_tpu — an audio-graph rendering framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of GraphAudio
+A from-scratch JAX/XLA rebuild of the capabilities of GraphAudio
 (the-byte-bender/GraphAudio, a Web-Audio-API-style C# engine; see SURVEY.md):
 node graphs of sources, filters, and spatializers rendered in 128-frame quanta
 with sample-accurate parameter automation.
 
-Architecture (TPU-first, not a translation):
+Architecture (compiled dataflow, not a translation):
   * Graphs are built on the host with an object API mirroring the reference's
     node/param surface (``GraphAudio.Core/Nodes/AudioNode.cs``), then compiled
     to a single jitted function over a pytree of node states.
   * Offline rendering scans that function over "superblocks" of S render
     quanta (``lax.scan``), so per-block Python/dispatch overhead vanishes and
-    XLA fuses the whole graph into a handful of TPU kernels.
+    XLA fuses the whole graph into a handful of device kernels.
   * Hot DSP (partitioned-FFT convolution, biquad IIR, resampling, parameter
-    curve evaluation) is expressed as batched tensor ops / Pallas kernels.
-  * Clocks, phases, and playback positions use float64 (TPU-emulated, tiny
-    tensors) to match the reference's double-precision accumulators; audio is
-    float32.
+    curve evaluation) is expressed as batched ``jnp``/``lax`` tensor ops.
+  * Clocks, phases, and playback positions use float64 (tiny tensors) to
+    match the reference's double-precision accumulators; audio is float32.
 
-Import side effect: enables ``jax_enable_x64`` (required for sample-accurate
-clock arithmetic). All library arrays are explicitly dtyped, so f32 audio
-paths are unaffected.
+Import side effects: enables ``jax_enable_x64`` (required for sample-accurate
+clock arithmetic; all library arrays are explicitly dtyped, so f32 audio
+paths are unaffected), and places JAX's persistent compilation cache (below).
 """
 
 import os as _os
+import warnings as _warnings
 
 import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent XLA compilation cache: graph compiles are seconds-to-minutes on
-# TPU, and identical programs recur across processes (services restart, CLIs
-# rerun). Default on, under the user cache dir; point GA_COMPILE_CACHE at a
-# different path or set it empty to disable. Never overrides an explicit
-# jax_compilation_cache_dir the embedding application already set.
-_cache_dir = _os.environ.get(
-    "GA_COMPILE_CACHE",
-    _os.path.join(
-        _os.environ.get("XDG_CACHE_HOME", _os.path.expanduser("~/.cache")),
-        "graphaudio_tpu",
-        "xla",
-    ),
+# Persistent XLA compilation cache: identical programs recur across
+# processes (services restart, CLIs rerun). JAX_COMPILATION_CACHE_DIR, or a
+# directory the embedding application already configured, wins; otherwise
+# the cache lives at one fixed path inside the checkout. The path is part of
+# the cache's key, so it must not vary between runs.
+_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
 )
-if _cache_dir and not _jax.config.jax_compilation_cache_dir:
+if not (
+    _os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    or _jax.config.jax_compilation_cache_dir
+):
     try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # caching is an optimization; never block import
+        _os.makedirs(_CACHE_DIR, exist_ok=True)
+    except OSError as _e:
+        _warnings.warn(
+            f"graphaudio_tpu: compilation cache disabled, cannot create "
+            f"{_CACHE_DIR}: {_e}",
+            RuntimeWarning,
+        )
+    else:
+        _jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
 
 from graphaudio_tpu.core.constants import FRAMES_PER_BLOCK, DEFAULT_SAMPLE_RATE, MAX_CHANNELS
 from graphaudio_tpu.core.buffer import PlayableAudioBuffer

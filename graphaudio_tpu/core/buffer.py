@@ -2,7 +2,7 @@
 
 ``PlayableAudioBuffer`` mirrors the reference's immutable multi-channel sample
 container (GraphAudio.Core/PlayableAudioBuffer.cs:9): planar float32 channel
-data at a fixed sample rate, initialized once and then read-only. On TPU the
+data at a fixed sample rate, initialized once and then read-only. On device the
 channel data lives as one ``[channels, length]`` device array so batched voice
 gathers read from a single arena.
 """

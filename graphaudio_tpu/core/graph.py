@@ -2,7 +2,7 @@
 
 The reference renders by recursive pull with per-node virtual dispatch and
 per-block memoization (AudioNode.ProcessInternal, AudioNode.cs:152-183;
-AudioNodeOutput.ProcessIfNeeded, AudioNodeOutput.cs:75-78). On TPU that
+AudioNodeOutput.ProcessIfNeeded, AudioNodeOutput.cs:75-78). Here that
 becomes: topologically sort the DAG once on the host, resolve static channel
 counts, then emit a single pure function
 
@@ -1039,7 +1039,7 @@ class CompiledGraph:
 
         ``axis_name``: when running inside shard_map with group lanes
         sharded over that mesh axis, whole-group (ALL) fan-ins of stages in
-        ``sharded_stages`` complete their local sums with a psum over ICI.
+        ``sharded_stages`` complete their local sums with a psum across the mesh.
         """
         sharded_stages = self.sharded_stages if axis_name else set()
         part_sharded = self.part_sharded if part_axis else set()
@@ -1122,7 +1122,7 @@ class CompiledGraph:
                         summed = jnp.sum(tensor, axis=0)
                         if p[1] in sharded_stages:
                             # lanes live sharded over the mesh: the bus
-                            # fan-in completes over ICI.
+                            # fan-in completes with a psum.
                             summed = jax.lax.psum(summed, axis_name)
                         parts.append(adapt_channels(summed, dst_c))
                         continue
@@ -1471,7 +1471,7 @@ class CompiledGraph:
         ``shard_map``: every group's lane axis is split over the mesh's
         'voice' axis (states, encodings, and source geometry sharded; the
         sample arena and single-node state replicated), voices mix locally,
-        and each whole-group fan-in finishes with one psum over ICI.
+        and each whole-group fan-in finishes with one psum across the mesh.
         """
         # Part-sharded singles engage shard_map even when no voice group
         # shards (e.g. a lone long-HRIR panner): otherwise part_sharded

@@ -5,7 +5,7 @@ Mirrors the public API of GraphAudio.Core/Nodes/AudioNode.cs (ports,
 GraphAudio.Core/AudioNodeInput.cs / AudioNodeOutput.cs (fan-in/fan-out ports,
 channel count modes).
 
-TPU-first difference: nodes do not process themselves via pull-based virtual
+Compiled-graph difference: nodes do not process themselves via pull-based virtual
 dispatch. They are *descriptions*. The context's graph compiler topo-sorts the
 connection graph, resolves static channel counts, and emits one jitted render
 function; each node contributes a pure functional kernel via
@@ -269,7 +269,7 @@ class AudioNode:
         voice stage.
 
         Nodes sharing a key are executed as ONE vmapped kernel over stacked
-        states/params — the TPU form of the reference's implicit voice-level
+        states/params — the batched form of the reference's implicit voice-level
         parallelism (N sources summed at an input, AudioNodeInput.cs:100-138).
         Keys must capture every compile-time attribute the kernel reads
         (filter type, channel counts, specialization flags). Nodes with

@@ -58,7 +58,7 @@ class AudioParam:
         # Rate-integrating consumers (the cubic resampler's playbackRate)
         # accumulate 1-ulp value noise into position drift, so their curves
         # evaluate in full f64 absolute time; everything else takes the f32
-        # fast path (f64 transcendentals are software-emulated on TPU).
+        # fast path (per-sample f64 transcendentals cost far more than f32).
         self.exact_eval = False
         # Sorted list of (time, seq, type, value, time_constant). ``seq``
         # breaks ties so equal-time events keep insertion order, matching the

@@ -6,7 +6,7 @@ cubic resampling when the effective rate != 1) and AudioDecoderStreamNode.cs
 (dedicated decoder thread refilling N x 4096-frame buffers, gapless looping
 via rewind-and-continue, Seek = stop -> seek -> refill -> resume).
 
-TPU design: the decoder thread fills a host-side chunk queue exactly like the
+Design: the decoder thread fills a host-side chunk queue exactly like the
 reference; at each render-call boundary the node *stages a feed* — a float32
 [channels, N] array of upcoming source samples handed to the jitted graph as
 data. The kernel is a stateless gather (unity-rate copy or Catmull-Rom
@@ -310,7 +310,7 @@ class AudioDecoderStreamNode(AudioNode):
             idx = j0.astype(jnp.int32) + jnp.arange(rc.frames, dtype=jnp.int32)
             out = jnp.take(feed, idx, axis=1)
         else:
-            # Per-block f64 positions, per-sample f32/i32 (f64 is emulated).
+            # Per-block f64 positions, per-sample f32/i32 (f64 is costly).
             S = rc.superblock
             from graphaudio_tpu.core.constants import FRAMES_PER_BLOCK
 

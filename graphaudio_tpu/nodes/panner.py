@@ -21,8 +21,8 @@ class StereoPannerNode(AudioNode):
         pan<=0: L = inL + inR*gL, R = inR*gR
         pan> 0: L = inL*gL,       R = inR + inL*gR.
 
-    The reference's per-sample trig cache (:88-98) is a CPU optimization; on
-    TPU the trig is vectorized directly.
+    The reference's per-sample trig cache (:88-98) is a CPU optimization;
+    here the trig is vectorized directly.
     """
 
     def __init__(self, context):

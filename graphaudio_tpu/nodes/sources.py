@@ -8,7 +8,7 @@ playback finishes, after
 which the node disposes itself (OscillatorNode.cs:163-172,
 AudioBufferSourceNode.cs:378-389).
 
-TPU design: the schedule (start/stop times) lives in the node's functional
+Design: the schedule (start/stop times) lives in the node's functional
 state as float64 scalars; per-block and per-sample gating masks are computed
 inside the jitted kernel, so voice start/stop is a state update — not a
 recompile. Phase and playback positions are float64 carries, matching the
@@ -162,7 +162,7 @@ class ScheduledSourceNode(AudioNode):
             float(FRAMES_PER_BLOCK),
         )
         # Per-block boundaries are small integers (exact in f32), so the
-        # per-sample comparisons run in f32 — f64 is emulated on TPU.
+        # per-sample comparisons run in f32, not f64.
         i = jnp.arange(FRAMES_PER_BLOCK, dtype=jnp.float32)
         sf = start_f.astype(jnp.float32)
         ef = end_f.astype(jnp.float32)
@@ -293,9 +293,9 @@ class OscillatorNode(ScheduledSourceNode):
 
     def process(self, state, inputs, params, rc):
         # Phase accumulation uses f64 anchors once per 128-frame block and
-        # f32 within the block: per-sample f64 is software-emulated on TPU
-        # (~25x slower) and f32 in-block phase error (~1e-7 rad) is far
-        # below audibility while the f64 cross-block carry prevents drift.
+        # f32 within the block: per-sample f64 costs far more than f32,
+        # and f32 in-block phase error (~1e-7 rad) is far below
+        # audibility while the f64 cross-block carry prevents drift.
         S = rc.superblock
         gate = self._sample_gate(state, rc)  # [S, 128]
         f = params["frequency"].per_sample().reshape(S, FRAMES_PER_BLOCK)
@@ -620,7 +620,6 @@ class AudioBufferSourceNode(ScheduledSourceNode):
     # dynamic_slice of size W from the packed arena, then reads taps with
     # small LOCAL indices. Loop wraps never appear per sample — the region's
     # periodic extension (build_region) makes every superblock's reads linear.
-    # (Per-sample global gathers were ~19x slower on TPU.)
 
     def _static_unity_rate(self, rc) -> bool:
         return self._static_unity_rate_cfg()
@@ -639,8 +638,8 @@ class AudioBufferSourceNode(ScheduledSourceNode):
 
     # Resample windows tile into overlapping HOP-strided rows so per-block
     # band extraction is a tiny row gather; interpolation is one batched
-    # matmul against a 4-banded weight matrix (element gathers are ~10x
-    # slower than MXU matmuls on TPU).
+    # matmul against a 4-banded weight matrix instead of per-sample element
+    # gathers.
     _HOP = 64
 
     @classmethod
@@ -718,8 +717,7 @@ class AudioBufferSourceNode(ScheduledSourceNode):
         # Reads are linear from the window: active blocks within a superblock
         # form one contiguous run (start once / stop once), so block b's data
         # is the (b - first_active)-th static 128-frame chunk — a tiny row
-        # gather instead of a per-sample gather (element gathers are ~10x
-        # slower on TPU).
+        # gather instead of a per-sample gather.
         delta_b = (pos_b - p0).astype(jnp.int32)  # [S] = 128*(active before b)
         local0 = e0.astype(jnp.int32) - start
         blocks = window[:, :S * FRAMES_PER_BLOCK].reshape(
@@ -905,7 +903,7 @@ class AudioBufferSourceNode(ScheduledSourceNode):
         The position stream x_j = x_0 + j*p/q lives on the 1/q grid, so the
         Catmull-Rom weights cycle with period q and are baked at COMPILE time
         into one [p+4, q] matrix (ops/resample.poly_matrix); the whole
-        superblock's resample is then static reshapes + ONE MXU matmul. A
+        superblock's resample is then static reshapes + ONE matmul. A
         per-superblock phase shift j0 (the canonical output index whose
         position fraction matches x_0's) aligns the precomputed pattern with
         the live playback position via a dynamic slice of the output.
@@ -1026,19 +1024,18 @@ class AudioBufferSourceNode(ScheduledSourceNode):
 
     # -- group-level kernels (all voices of a stage at once) -------------------
     #
-    # The per-voice vmapped forms spend ~85% of their time in per-voice
-    # ELEMENT gathers (window fetch, j0 output shift, canonical-base slice):
-    # batched dynamic slices lower to per-element gathers on TPU (~0.9
-    # ns/element). These group forms replace every one of them:
-    #   * window fetch  -> 128-sample ROW gather (the fast kind) + an exact
-    #     one-hot lane-shift matmul (one factor is 1.0, so any MXU precision
-    #     reconstructs the f32 operand exactly) — _gather_windows_group;
+    # The per-voice vmapped forms read through per-voice ELEMENT gathers
+    # (window fetch, j0 output shift, canonical-base slice): batched dynamic
+    # slices lower to per-element gathers. These group forms replace every
+    # one of them:
+    #   * window fetch  -> 128-sample ROW gather + an exact one-hot
+    #     lane-shift matmul (one factor is 1.0, so the f32 operand is
+    #     reconstructed exactly) — _gather_windows_group;
     #   * j0 shift      -> a one-hot column-rotation matmul over the q axis
     #     plus a row-carry select;
     #   * validity      -> a closed-form integer threshold per voice
     #     (floor(x_j) <= end-3  <=>  j < ceil(((end-2)*q - round(x0*q)) / p)).
-    # Measured 4.2x on the 64-voice flagship stage; outputs are bit-identical
-    # to the per-voice paths.
+    # Outputs are bit-identical to the per-voice paths.
 
     @staticmethod
     def _gather_windows_group(arena, abs_start, w: int):
@@ -1141,9 +1138,7 @@ class AudioBufferSourceNode(ScheduledSourceNode):
         e0 = jnp.where(looping & (p0 >= lsf), lsf + llen + qmod, p0)
         # The per-superblock block index composes into the row fetch itself
         # (rows[row0 + s][bidx[s]] == rows[row0 + bidx[s]]): ONE row gather
-        # replaces the gather + take_along_axis pair (measured 0.058 ->
-        # 0.034 ms/step for the 128-voice aligned stage,
-        # benchmarks/results/micro_probe.json).
+        # replaces the gather + take_along_axis pair.
         if aligned:
             # Positions and arena offsets are multiples of 128 by variant
             # contract; floor the end-clip to keep the start aligned (only
@@ -1253,7 +1248,7 @@ class AudioBufferSourceNode(ScheduledSourceNode):
         # ---- window fetch: row gather + exact one-hot lane shift ----------
         window = cls._gather_windows_group(arena, off + front + start, w)
 
-        # ---- canonical polyphase: slabs + ONE merged MXU matmul ------------
+        # ---- canonical polyphase: slabs + ONE merged matmul ----------------
         wa = window[:, :, : (ncan + nb) * p].reshape(V, C, ncan + nb, p)
         parts = []
         covered = 0

@@ -9,7 +9,7 @@ bilinear interpolation and a SpatialBlend 2D/3D crossfade (:250-260).
 
 The reference delegates DSP to the closed-source Steam Audio (phonon) C++
 library; here everything is closed-form JAX (direct path) plus an analytic
-spherical-head HRTF (ops/hrtf.py) applied as per-quantum MXU FIR matmuls.
+spherical-head HRTF (ops/hrtf.py) applied as per-quantum FIR matmuls.
 The direct-path formulas are exactly the reference's; the HRIR set is a
 documented substitute for phonon's measured HRTF.
 
@@ -352,7 +352,7 @@ class SpatialPannerNode(AudioNode):
 
         Crossover frequencies are compile-time constants, so each lowpass is
         an exact blocked matmul (ops/onepole.py) rather than a per-sample
-        scan — MXU work with no sequential dependency inside a block.
+        scan — matmul work with no sequential dependency inside a block.
         """
         sr = rc.sample_rate
 

@@ -11,7 +11,7 @@ the superblock axis. This replaces the per-sample associative scan used for
 time-varying filters (ops/biquad._first_order_scan) on paths whose
 coefficients are fixed (the spatializer's 3-band crossovers): scans cost
 log-depth program blowup at compile time and sequential work at run time,
-while this form is pure MXU.
+while this form is pure matmul work.
 
 Parity note: numerically identical (to f32 rounding) to running the
 reference's sequential one-pole (the DirectEffect band split the reference

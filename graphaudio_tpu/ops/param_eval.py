@@ -174,11 +174,11 @@ def eval_intrinsic(enc, t):
 
 def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
                            exact: bool = False):
-    """``eval_intrinsic`` restructured for TPU: f64 anchors, f32 samples.
+    """``eval_intrinsic`` restructured for the device: f64 anchors, f32
+    samples.
 
-    float64 is software-emulated on TPU (~25x slower than f32 vector work),
-    and per-sample curve math in f64 dominated whole-graph render time once
-    voice counts grew. The reference's double clock only matters for
+    float64 math costs far more than f32 on accelerators, and per-sample
+    curve math in f64 grows with voice count. The reference's double clock only matters for
     ABSOLUTE times; deltas within a 128-frame block are tiny. So: compute
     each event time RELATIVE to its block start in f64 once per block
     ([S, capacity] values), round to f32, and do all per-sample selection
@@ -217,8 +217,8 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
         # once (AudioParam.cs:219-237), and a 1-ulp f32 difference here is
         # INTEGRATED into position drift by the resampler. The cost is S
         # scalars per step; non-integrating params keep the f32 fast path
-        # (f64 pow/exp are software-emulated — a 17-k-rate-param stage ran
-        # 15x slower when every param took this branch).
+        # (f64 pow/exp are costly, and a spatial panner has 17 k-rate
+        # params).
         return eval_intrinsic(enc, block_times)
 
     times = enc["times"]  # f64[cap]
@@ -256,9 +256,9 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
     has_prev = idx > 0
     has_next = idx < n
 
-    # Event-field lookup via one-hot reductions, NOT jnp.take: per-element
-    # gathers serialize on TPU (~10x slower than vector math) and dominated
-    # render time; capacity is small, so a masked sum over it is cheap.
+    # Event-field lookup via one-hot reductions, NOT jnp.take: capacity is
+    # small, so a masked sum over it is cheap elementwise work (whether a
+    # native gather is faster on a GPU is ROADMAP S3).
     k_iota = jnp.arange(cap, dtype=jnp.int32)
     oh_prev = (prev[..., None] == k_iota).astype(jnp.float32)  # [S, n, cap]
     oh_nxt = (nxt[..., None] == k_iota).astype(jnp.float32)
@@ -289,7 +289,7 @@ def eval_intrinsic_blocked(enc, block_times, n_per_block, sample_dt,
         # math in doubles, rounding once): consumers like the delay line's
         # integer truncation or the oscillator's phase integral amplify a
         # 1-ulp f32 value difference into full-sample errors. Only mul/add
-        # (cheap even emulated); exponential/setTarget keep the f32 path —
+        # (cheap even in f64); exponential/setTarget keep the f32 path —
         # f64 pow/exp are prohibitively slow and those curves on
         # exact-flagged params are rare (documented in PARITY.md).
         k64 = jnp.arange(cap, dtype=jnp.int32)

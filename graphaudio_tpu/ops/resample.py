@@ -3,8 +3,8 @@
 The reference's ``CubicResampler`` (GraphAudio.Core/CubicResampler.cs:19) is a
 stateful per-sample loop: a 4-sample history window slides over the input at a
 fractional rate, producing each output from a Catmull-Rom polynomial of the
-window (:52-57). Sequential input consumption is hostile to TPUs, so here the
-window position is computed in closed form — after the 4-sample warmup the
+window (:52-57). Sequential input consumption leaves a wide device idle, so
+here the window position is computed in closed form — after the 4-sample warmup the
 j-th output interpolates at continuous input position
 
     x_j = x_0 + j * rate        (x_0 = start_position + 1 after priming)
@@ -24,8 +24,8 @@ def cr_weights(t):
     """Catmull-Rom tap weights (w0..w3) for fraction t (f32).
 
     Expansion of the reference polynomial (CubicResampler.cs:52-57) in terms
-    of the four taps, used to build banded interpolation matrices for the MXU
-    formulation of resampling.
+    of the four taps, used to build banded interpolation matrices for the
+    matmul formulation of resampling.
     """
     t = t.astype(jnp.float32)
     w0 = t * (-0.5 + t * (1.0 - 0.5 * t))
@@ -102,7 +102,7 @@ def split_positions(xb, rate_b, frames_per_block: int):
     xb: f64[S] block-start positions; rate_b: f64[S] per-block rates.
     f64 anchors are computed every SUB_CHUNK samples, so the f32 intra-chunk
     offset never exceeds ~SUB_CHUNK*rate and keeps ~1e-6-sample accuracy
-    while per-sample math stays in TPU-native dtypes.
+    while per-sample math stays in 32-bit dtypes.
 
     Returns (base i32[S, frames_per_block], frac f32[S, frames_per_block]).
     """
@@ -132,9 +132,8 @@ def gather_resample(data, base, frac, loop_active, loop_start, loop_end,
     """Resample ``data`` at positions base + frac with loop wrapping.
 
     Positions are split into an int32 integer part and a float32 fraction:
-    per-sample arithmetic stays in TPU-native dtypes (float64 is emulated and
-    ~50x slower on the VPU); callers keep float64 only for per-*block*
-    position bookkeeping.
+    per-sample arithmetic stays in 32-bit dtypes (float64 math costs far
+    more); callers keep float64 only for per-*block* position bookkeeping.
 
     Args:
       data: f32[C, A] source samples — possibly a packed arena holding many

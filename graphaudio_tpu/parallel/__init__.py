@@ -1,11 +1,11 @@
 """Multi-chip scaling via jax.sharding / shard_map over device meshes.
 
 The reference is a single-process engine whose only concurrency is
-thread-level (SURVEY.md §2.7). Its TPU-native scaling story (this module):
+thread-level (SURVEY.md §2.7). Its multi-device scaling story (this module):
 
 * **Voice parallelism** (data-parallel analogue): independent voices shard
   across a mesh axis; the fan-in mix at a bus input becomes one ``psum`` over
-  ICI — the collective form of AudioNodeInput's summing junction
+  the device interconnect (NVLink between GPUs) — the collective form of AudioNodeInput's summing junction
   (AudioNodeInput.cs:100-138).
 * **IR-partition parallelism** (tensor-parallel analogue): a partitioned
   convolver's spectral MAC shards the partition axis across devices, each

@@ -5,12 +5,12 @@ pan, mixed into a shared partitioned-FFT reverb and master gain — expressed as
 one ``shard_map``-ped render step over a ``Mesh`` with axes:
 
   * ``voice``: voice states/arenas sharded; local voices synthesize and
-    pre-mix on-device, then one ``psum`` over ICI yields the bus mix.
+    pre-mix on-device, then one ``psum`` over NVLink yields the bus mix.
   * ``part``: the convolver's IR partition spectra shard along the partition
     axis; each device correlates its slice of the (replicated) spectral delay
     line with its local H, and a second ``psum`` completes the spectral MAC.
 
-This is the TPU-native equivalent of the reference's voice fan-in
+This is the multi-device equivalent of the reference's voice fan-in
 (AudioNodeInput.cs:100-138) and of scaling long IRs beyond one chip
 (PartitionedConvolver.cs:154-223). All shapes are static; the step jits once.
 """
@@ -108,7 +108,7 @@ class ShardedVoiceScene:
         return {
             "pos": jnp.zeros((self.V,), jnp.float64),
             # Per-channel spectral delay line, oldest first (replicated),
-            # carried as split real/imag float32 (no complex dtypes on TPU).
+            # carried as split real/imag float32.
             "hist_r": jnp.zeros((2, self.P - 1, NUM_BINS), jnp.float32),
             "hist_i": jnp.zeros((2, self.P - 1, NUM_BINS), jnp.float32),
             "overlap": jnp.zeros((2, FRAMES_PER_BLOCK), jnp.float32),
@@ -149,10 +149,10 @@ class ShardedVoiceScene:
         )
         def step(arena_shard, hr_shard, hi_shard, pos_shard, gain_shard,
                  pan_shard, hist_r, hist_i, overlap):
-            # ---- voice synthesis + local pre-mix, then ICI psum ----
+            # ---- voice synthesis + local pre-mix, then NVLink psum ----
             voiced = jax.vmap(voice_synth)(arena_shard, pos_shard, gain_shard, pan_shard)
             local_mix = jnp.sum(voiced, axis=0)  # [2, T]
-            mix = jax.lax.psum(local_mix, "voice")  # bus fan-in over ICI
+            mix = jax.lax.psum(local_mix, "voice")  # bus fan-in over NVLink
 
             # ---- partition-sharded spectral convolution ----
             dft = RealDft(FRAMES_PER_BLOCK, FFT_SIZE)

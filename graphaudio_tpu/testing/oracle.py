@@ -7,7 +7,7 @@ transliteration of the algorithmic behavior of GraphAudio
 Mozilla Public License 2.0 (https://mozilla.org/MPL/2.0/). Per-class citations
 below name the C# sources each oracle class reproduces. The oracle's entire
 purpose is to replicate the reference's semantics literally so the production
-TPU renderer (which shares no code with either) can be validated against an
+JAX renderer (which shares no code with either) can be validated against an
 independent implementation; it is test-only code and is not part of the
 rendering framework.
 
@@ -27,7 +27,7 @@ numpy, block by block, with float32 arithmetic wherever the reference uses
     (`PartitionedConvolver.cs:104-223`).
 
 It exists to catch shared-bug drift that self-referential goldens cannot:
-the TPU renderer and this oracle share NO code, so agreement between them on
+the JAX renderer and this oracle share NO code, so agreement between them on
 whole-graph configs validates both. It is intentionally unoptimized — do not
 use it for anything but tests.
 """

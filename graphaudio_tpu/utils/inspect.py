@@ -2,8 +2,8 @@
 
 Extends the reference's GetAllNodes debug walk (AudioContextBase.cs:191-218)
 with the compiled schedule view (stages, batching, channel counts) — the
-information a performance engineer needs to see how the graph mapped to TPU
-kernels.
+information a performance engineer needs to see how the graph mapped to
+device kernels.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Render performance statistics.
 
-The TPU analogue of BufferPool.GetStatistics (BufferPool.cs:133-149) plus the
+The device analogue of BufferPool.GetStatistics (BufferPool.cs:133-149) plus the
 per-quantum timing probe SURVEY.md §5 calls for. The context records wall
 time per render call; ``RenderStats`` summarizes throughput (xRT), quantum
 timing, and compile counts. For deep kernel analysis use jax.profiler

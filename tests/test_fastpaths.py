@@ -1,6 +1,6 @@
 """Fast-path parity: program cache, blocked-matmul one-pole, const biquad.
 
-These cover the TPU-specific performance machinery that has no reference
+These cover the device-specific performance machinery that has no reference
 counterpart: the compiled-program cache (voice churn must not recompile) and
 the closed-form replacements for first-order scans.
 """

@@ -3,13 +3,13 @@
 The oracle (graphaudio_tpu/testing/oracle.py) implements the reference's
 per-block pull semantics literally — per-sample automation walk, streaming
 CubicResampler, sequential f32 biquad, partitioned convolver with a
-frequency-domain delay line — and shares no code with the TPU renderer.
+frequency-domain delay line — and shares no code with the JAX renderer.
 
 Each test builds the same graph in both systems (structurally identical to
 the BASELINE.json benchmark configs, at reduced duration/voice counts so the
 deliberately slow oracle stays test-sized) and asserts sample-level
 agreement. Tolerances reflect unavoidable f32 reassociation between the
-sequential reference arithmetic and the TPU's batched forms; they are far
+sequential reference arithmetic and the renderer's batched forms; they are far
 below audibility and catch any semantic divergence (wrong event boundary,
 off-by-one position, wrong mixing rule) which shows up at 1e-2+.
 """

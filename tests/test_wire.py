@@ -1,8 +1,9 @@
 """Compressed wire formats: G.711 mu-law and IMA ADPCM, encoded on device.
 
 The reference's device path delivers interleaved PCM
-(GraphAudio.Core/AudioContextBase.cs:88-161); on link-attached accelerators
-these standard lossy formats cut wire bytes 2x (mu-law) / ~3.9x (ADPCM).
+(GraphAudio.Core/AudioContextBase.cs:88-161); where device-to-host bandwidth
+bounds delivery these standard lossy formats cut wire bytes 2x (mu-law) /
+~3.9x (ADPCM).
 These tests pin three contracts:
 
 1. Device encoders are BIT-EXACT vs the host numpy reference encoders
